@@ -77,6 +77,8 @@ def main():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--baseline-episodes", type=int, default=512)
     args = p.parse_args()
+    from placement_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import jax
     from placement_tpu.agent.ppo import PPOConfig

@@ -1,6 +1,6 @@
 """PPO training entry point.
 
-TPU-native equivalent of ``experiments/PPO/PPO.py`` in the reference: pick a
+Equivalent of ``experiments/PPO/PPO.py`` in the reference: pick a
 model type, train with per-iteration checkpointing (keep 5), and — for pin
 model types — export deterministic rollouts and the config CSV afterwards
 (``experiments/PPO/PPO.py:27-54``). No Ray: the training loop is one jitted
@@ -60,6 +60,8 @@ def main() -> None:
     p.add_argument("--results-root", type=str, default=None,
                    help="results root (default ~/placement_tpu_results)")
     args = p.parse_args()
+    from placement_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if (args.num_processes or 0) > 1 and not args.run_name:
         p.error("--run-name is required with --num-processes > 1 "
                 "(timestamped names would differ across processes)")

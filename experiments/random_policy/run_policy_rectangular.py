@@ -31,6 +31,8 @@ def main() -> None:
     p.add_argument("--n_episodes", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
+    from placement_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     params = EnvParams(
         variant=Variant.RECT, height=args.height, width=args.width,

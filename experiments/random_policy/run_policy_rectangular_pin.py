@@ -50,6 +50,8 @@ def main() -> None:
     p.add_argument("--n_episodes", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
+    from placement_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     variant = Variant.PIN_SPATIAL if args.spatial else Variant.PIN
     kw = {k: v for k, v in vars(args).items()

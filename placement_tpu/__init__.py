@@ -1,11 +1,11 @@
-"""placement_tpu — a TPU-native PCB component-placement RL framework.
+"""placement_tpu — a JAX PCB component-placement RL framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``PBozmarov/RL-Environment-for-Component-Placement``: four placement
 environments (square, rectangular, rectangular-pin, rectangular-pin-spatial)
-expressed as one pure-functional, fully batched stepper; a Flax policy-model
-zoo; factorized action distributions; an on-device PPO actor-learner; and
-mesh-sharded scale-out over TPU pod slices.
+expressed as one pure-functional, fully batched stepper; a policy-model zoo
+of plain-function layers; factorized action distributions; an on-device PPO
+actor-learner; and data-parallel scale-out over a device mesh.
 
 Reference parity map (reference file -> this package):
   environment/dummy_env_square.py              -> placement_tpu.env (Variant.SQUARE)

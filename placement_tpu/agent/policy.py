@@ -51,33 +51,16 @@ class Policy:
     # -- lifecycle ---------------------------------------------------------
 
     def init(self, key, sample_obs) -> Dict:
-        return self.model.init(key, sample_obs, train=False,
-                               method=PlacementModel.init_all)
+        return self.model.init(key, sample_obs)
 
     # -- helpers -----------------------------------------------------------
 
-    def _apply(self, variables, obs, train: bool):
-        if train:
-            out, updates = self.model.apply(
-                variables, obs, train=True, mutable=["batch_stats"])
-            return out, updates
-        out = self.model.apply(variables, obs, train=False)
-        return out, None
-
     def _heads(self, variables) -> D.FactorizedHeads:
         m = self.model
-
-        def o(enc, xn, yn):
-            return m.apply(variables, enc, xn, yn, method=PlacementModel.o_logits)
-
-        def x(enc, oh):
-            return m.apply(variables, enc, oh, method=PlacementModel.x_logits)
-
-        def y(enc, oh, xn):
-            return m.apply(variables, enc, oh, xn, method=PlacementModel.y_logits)
-
         return D.FactorizedHeads(
-            o=o, x=x, y=y,
+            o=lambda enc, xn, yn: m.o_logits(variables, enc, xn, yn),
+            x=lambda enc, oh: m.x_logits(variables, enc, oh),
+            y=lambda enc, oh, xn: m.y_logits(variables, enc, oh, xn),
             num_orientations=self.cfg.num_orientations,
             height=self.cfg.height, width=self.cfg.width)
 
@@ -93,7 +76,7 @@ class Policy:
         dist_inputs). dist_inputs is what PPO stores to rebuild the behavior
         distribution (masked logits, or the encoding for factorized heads) —
         mirroring RLlib's SampleBatch.ACTION_DIST_INPUTS."""
-        out, _ = self._apply(variables, obs, train=False)
+        out, _ = self.model.apply(variables, obs)
         value = out["value"]
         if self.cfg.is_factorized:
             enc = out["encoding"]
@@ -114,7 +97,7 @@ class Policy:
                  train: bool = True) -> tuple:
         """Recompute (logp, entropy, value, kl_vs_behavior, bn_updates) for
         stored transitions under the current parameters."""
-        out, updates = self._apply(variables, obs, train=train)
+        out, updates = self.model.apply(variables, obs, train=train)
         value = out["value"]
         if self.cfg.is_factorized:
             enc = out["encoding"]

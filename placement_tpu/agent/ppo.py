@@ -21,11 +21,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from placement_tpu.agent.policy import Policy
 from placement_tpu.env import core, pooled
 from placement_tpu.env.types import EnvParams, EnvState, Variant
+from placement_tpu.utils import pytree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +113,8 @@ def default_pool_size(params: EnvParams, unroll_length: int) -> int:
     return max(min(unroll_length, unroll_length // est + 2), 2)
 
 
-class TrainState(struct.PyTreeNode):
+@pytree.dataclass
+class TrainState:
     variables: Any                   # {'params': ..., 'batch_stats': ...}
     opt_state: Any
     kl_coeff: jnp.ndarray
@@ -237,7 +238,7 @@ class PPOLearner:
             (counts > pool_size).astype(jnp.int32))
         # bootstrap value for the final observation
         obs = jax.vmap(lambda s: core.observe(env_params, s))(env_states)
-        out = self.policy.model.apply(state.variables, obs, train=False)
+        out, _ = self.policy.model.apply(state.variables, obs)
         last_value = out["value"]
         new_state = state.replace(env_states=env_states, key=key,
                                   ep_return_acc=ret_acc, ep_len_acc=len_acc)

@@ -12,7 +12,7 @@ checkpoints.
 Run-dir layout mirrors what the reference documents
 (``docs/source/usage.rst:284-311``): ``<results_root>/PPO/PPO_<type>_<ts>/``
 containing ``progress.csv``, TensorBoard events, ``params.json`` (full run
-config), and Orbax ``checkpoint_<iter>/`` directories.
+config), and ``checkpoint_<iter>/`` directories.
 """
 
 from __future__ import annotations
@@ -113,9 +113,9 @@ class Trainer:
         self.ckpt = CheckpointManager(self.checkpoint_dir,
                                       max_to_keep=keep_checkpoints,
                                       save_interval=checkpoint_freq)
-        # Multi-host: checkpoint saves are collective (every process calls
-        # save; Orbax coordinates through jax.distributed), but metric files
-        # have one writer — process 0 (metrics are replicated anyway).
+        # Multi-host: every process calls save (gathering the sharded env
+        # batch is collective) and process 0 writes; metric files also have
+        # one writer — process 0 (metrics are replicated anyway).
         self.is_main_process = jax.process_index() == 0
         self.logger = (MetricsLogger(self.run_dir,
                                      use_tensorboard=use_tensorboard)

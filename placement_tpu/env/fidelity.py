@@ -199,11 +199,8 @@ def check_sampling_fidelity(params: EnvParams, *, context: str = "config",
     ``env_overrides``, the web app's sliders) invoke this so no silently
     biased sampling regime is reachable from shipped UIs; the fix is
     ``exact_sampling=True`` (reference-process sampling via sequential
-    per-trial draws), whose cost is measured, not guessed: 1.2-1.3x on a
-    full pooled rollout at training scale on the area-tight flagship
-    config, ~1.0x at the web-app maximum (``tools/price_exact_sampling.py``
-    on the real chip — the sequential trial scans vectorize fine under
-    ``vmap``; artifact ``experiments/results/exact_sampling_price.json``).
+    per-trial draws; ``tools/price_exact_sampling.py`` measures what it
+    costs a pooled rollout on the GPU).
     """
     if not params.has_pins or params.exact_sampling:
         return True
@@ -215,7 +212,7 @@ def check_sampling_fidelity(params: EnvParams, *, context: str = "config",
             f"the reference process (TVD {tvd:.3f} vs sampling-noise floor "
             f"{noise:.3f} over {n_samples} resets). Set exact_sampling=True "
             f"on the environment config to sample with the reference's "
-            f"exact process (measured cost: ~1.2-1.3x rollout time at "
-            f"training scale, see docs/performance.md), or widen component "
-            f"areas / reduce pins per net.", UserWarning, stacklevel=3)
+            f"exact process (slower resets; tools/price_exact_sampling.py "
+            f"measures the cost), or widen component areas / reduce pins "
+            f"per net.", UserWarning, stacklevel=3)
     return not deviates

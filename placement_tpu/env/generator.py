@@ -57,8 +57,8 @@ def _multinomial(key, n_trials, probs, max_trials: int):
     """Multinomial via ``max_trials`` parallel categorical draws, the first
     ``n_trials`` of which count (np.random.multinomial at
     allocate_pins_to_components_for_net:1237). No sequential scan — all
-    draws issue as one batched op, which is what keeps auto-reset off the
-    critical path on TPU."""
+    draws issue as one batched op, which keeps auto-reset off the critical
+    path."""
     logits = jnp.where(probs > 0, jnp.log(jnp.maximum(probs, 1e-30)),
                        -jnp.inf)
     draws = jax.random.categorical(key, logits, shape=(max_trials,))

@@ -3,8 +3,7 @@
 ``core.step_autoreset`` draws a fresh instance inside the step, so under
 ``vmap`` the generator's ~50 small kernels execute for every board on every
 step even though only done boards consume the result (the done-branch lowers
-to a ``select``). Profiling on a real v5e chip showed this is ~75% of the
-auto-reset step cost at B=4096 (PERF_NOTES.md).
+to a ``select``, so the whole generator runs every step).
 
 This module replaces the per-step draw with a *pool*: one big batched
 generator call per rollout chunk produces ``[K, B]`` fresh board states
@@ -71,8 +70,8 @@ def gated_terminal_rewards(params: EnvParams, stepped: EnvState, done,
     all-pairs crossing count — for EVERY board on EVERY step and throws the
     result away unless the board finished (env/core.py:186-195); under
     ``vmap`` the done-branch is a ``select``, so nothing short-circuits. On
-    big boards that discarded work dominates the pooled path (the web-app
-    maximum measured 66.5k steps/s with routing ~all of the step cost).
+    big boards (the web-app maximum's 10 nets of up to 10 pins) that
+    discarded work dominates the pooled step.
 
     This computes the identical per-board quantity but only where it is
     consumed: the (at most ``budget``) boards that finished this step are

@@ -7,7 +7,7 @@ Reference subsystem: dummy_env_rectangular_pin.py:643-975
   * wirelength              find_wirelength:741
   * reward composition      find_reward:832
 
-TPU-native design: all nets are routed simultaneously on padded
+Design: all nets are routed simultaneously on padded
 ``[N, M]`` pin tensors; the O(nets^2 * segments^2) Python crossing loops
 become one vectorized all-pairs predicate over a padded segment table with a
 cross-net mask; the heapq beam search becomes a ``lax.scan`` over path length
@@ -36,7 +36,7 @@ def _flt():
     runs under ``jax.experimental.enable_x64`` so distance/centroid rounding
     — including the reference's f64 tie-breaking noise in ``pin_outlier``,
     np.linalg.norm at :1336-1339 — matches NumPy bit-for-bit), float32 in
-    production where TPUs have no native f64."""
+    production, where accelerators run f64 slowly or not at all."""
     return jax.dtypes.canonicalize_dtype(jnp.float64)
 
 
@@ -133,7 +133,20 @@ def _heap_order(cost, path_keys):
     return jnp.lexsort(keys + (cost,))
 
 
-def beam_search_net(pos, mask, beam_width: int, start) -> jnp.ndarray:
+def sqrt_table(max_sq: int, dtype) -> jnp.ndarray:
+    """Correctly rounded ``sqrt(k)`` for every integer ``k <= max_sq``.
+
+    Pin coordinates are integers, so every routing distance is the root of
+    an integer. Looking it up keeps path costs bit-identical across
+    backends: a GPU square root need not be correctly rounded, and a 1-ulp
+    difference flips ties such as ``sqrt(8)`` against ``2 * sqrt(2)``
+    between two equal-length paths."""
+    return jnp.asarray(np.sqrt(np.arange(max_sq + 1, dtype=np.float64)),
+                       dtype)
+
+
+def beam_search_net(pos, mask, beam_width: int, start,
+                    roots) -> jnp.ndarray:
     """Shortest pin-visiting path for one net -> path indices i32[M].
 
     Each round, up to ``beam_width`` frontier paths each expand to their
@@ -141,6 +154,7 @@ def beam_search_net(pos, mask, beam_width: int, start) -> jnp.ndarray:
     pin order, like the reference's ``sorted``), and the ``beam_width`` best
     new paths survive ranked by (total distance, lexicographic coordinate
     path) — exactly the heapq ordering of beam_search:1356-1423.
+    ``roots`` (``sqrt_table``) covers every squared pin distance.
     """
     m = pos.shape[0]
     bw = beam_width
@@ -161,8 +175,9 @@ def beam_search_net(pos, mask, beam_width: int, start) -> jnp.ndarray:
     def round_(state, step):
         paths, path_keys, visited, cost, current = state
         # distances from each frontier head to every pin
-        d = jnp.linalg.norm(pos[None, :, :] - pos[current][:, None, :],
-                            axis=-1)                       # [bw, m]
+        sq = jnp.sum(jnp.square(pos[None, :, :] - pos[current][:, None, :]),
+                     axis=-1)                              # [bw, m], integers
+        d = jnp.take(roots, sq.astype(jnp.int32), mode="clip")
         d = jnp.where(visited, BIG, d)
         # stable sort => equal distances break by pin index, like sorted()
         nbr_order = jnp.argsort(d, axis=1, stable=True)    # [bw, m]
@@ -208,22 +223,35 @@ def beam_search_net(pos, mask, beam_width: int, start) -> jnp.ndarray:
 
 def pin_outlier_index(pos, mask) -> jnp.ndarray:
     """Index of the pin farthest from the net centroid (pin_outlier:1326;
-    np.argmax => first max wins ties)."""
+    np.argmax => first max wins ties).
+
+    In f32 the distances are compared as ``|count * pin - sum|^2``: every
+    term is an integer below 2^24, so the comparison is exact and the same
+    on every backend. (A rounded centroid would let the GPU's fused
+    multiply-adds break mathematically tied distances differently from the
+    CPU, and the beam route starts from this pin.) Under x64 the reference's
+    own f64 norm is kept, rounding noise included."""
     count = jnp.sum(mask)
-    centroid = (jnp.sum(jnp.where(mask[:, None], pos, 0.0), axis=0)
-                / jnp.maximum(count, 1).astype(pos.dtype))
-    d = jnp.where(mask, jnp.linalg.norm(pos - centroid, axis=1), -1.0)
-    return jnp.argmax(d)
+    total = jnp.sum(jnp.where(mask[:, None], pos, 0.0), axis=0)
+    n = jnp.maximum(count, 1).astype(pos.dtype)
+    if pos.dtype == jnp.float64:
+        d = jnp.linalg.norm(pos - total / n, axis=1)
+    else:
+        diff = pos * n - total
+        d = jnp.sum(diff * diff, axis=1)
+    return jnp.argmax(jnp.where(mask, d, -1.0))
 
 
 def beam_route(params: EnvParams, pos, mask, beam_width: int) -> tuple:
     """Routes for all nets via beam search -> (segments f32[N, M-1, 4],
     validity bool[N, M-1])."""
     m = params.max_num_pins_per_net
+    # coordinates lie in [-1, size - 1] (-1 = not placed)
+    table = sqrt_table(params.height ** 2 + params.width ** 2, pos.dtype)
 
     def one(net_pos, net_mask):
         start = pin_outlier_index(net_pos, net_mask)
-        path = beam_search_net(net_pos, net_mask, beam_width, start)
+        path = beam_search_net(net_pos, net_mask, beam_width, start, table)
         cnt = jnp.sum(net_mask)
         a = path[:-1]
         b = path[1:]
@@ -253,7 +281,7 @@ def _pairwise_intersect(seg_a, seg_b):
     integer endpoint coordinates (or integer-scaled ones, see
     ``count_crossings``) every intermediate is an exact small integer, so
     the result is identical in f32, f64, and across differently-fused XLA
-    programs (the Pallas kernel's reward body must agree bit-for-bit)."""
+    programs."""
     x1, y1, x2, y2 = jnp.moveaxis(seg_a, -1, 0)
     x3, y3, x4, y4 = jnp.moveaxis(seg_b, -1, 0)
 
@@ -289,8 +317,8 @@ def _pairwise_intersect_ref_float(seg_a, seg_b):
     reproducing the reference's rounding, not improving on it, so the x64
     parity path evaluates THIS predicate on the raw (unscaled) coordinates;
     production f32 keeps the exact integer predicate, whose deviation is
-    bounded by tests/parity's f32 envelope test and whose bit-stability
-    across engines is what the fused Pallas kernel's goldens anchor.
+    bounded by tests/parity's f32 envelope test and which gives the same
+    count however XLA fuses the program.
 
     With all-integer endpoints (beam routes) the two predicates agree: every
     operand is exactly representable and a rational crossing point p/q can't

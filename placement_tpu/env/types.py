@@ -19,7 +19,8 @@ import math
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+
+from placement_tpu.utils import pytree
 
 
 class Variant(enum.IntEnum):
@@ -194,7 +195,7 @@ class EnvParams:
         return dataclasses.replace(self, **kw)
 
 
-@struct.dataclass
+@pytree.dataclass
 class EnvState:
     """One board's full state as a fixed-shape pytree.
 

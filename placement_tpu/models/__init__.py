@@ -1,4 +1,4 @@
-"""Flax policy-network zoo mirroring the reference's ten architectures
+"""Policy-network zoo mirroring the reference's ten architectures
 (agent/models/*, registry utils/agent/utils.py:62-86)."""
 
 from placement_tpu.models.zoo import (  # noqa: F401

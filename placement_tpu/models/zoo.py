@@ -1,4 +1,4 @@
-"""The ten reference policy architectures as one configurable Flax module.
+"""The ten reference policy architectures as one configurable model.
 
 Reference classes (agent/models/) -> presets here (registry names match
 utils/agent/utils.py:62-74):
@@ -17,7 +17,7 @@ utils/agent/utils.py:62-74):
 All observations arrive batched [B, ...] in the env's obs-dict layout.
 Joint-head presets return masked logits over the flattened (orientation, x,
 y) action space plus a value; factorized presets return the encoding plus a
-value, with per-factor logit heads exposed as extra apply methods for the
+value, with per-factor logit heads exposed as extra methods for the
 factorized action distributions.
 """
 
@@ -27,9 +27,10 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
-from placement_tpu.models.blocks import ConvBlocks, SelfAttention, mask_logits
+from placement_tpu.models.blocks import (Scope, attention, batch_norm,
+                                         conv_blocks, dense, mask_logits,
+                                         self_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,79 +83,75 @@ class ModelConfig:
         return self.num_orientations * self.height * self.width
 
 
-class PlacementModel(nn.Module):
-    """One module, ten presets — encoder chosen by cfg.model_type."""
+_ATTN_PIN_TYPES = ("rectangle_pin_attn_all", "rectangle_pin_attn_all_no_grid",
+                   "rectangle_pin_all_attn_factorized")
+_ATTN_COMP_TYPES = ("rectangle_pin_attn_component",) + _ATTN_PIN_TYPES
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementModel:
+    """One model, ten presets — encoder chosen by cfg.model_type.
+
+    Variables are ``{"params": ..., "batch_stats": ...}`` keyed by the layer
+    names below (``grid_conv``, ``component_dense``, ``logits_head``...).
+    A layer that the preset never calls has no variables.
+    """
 
     cfg: ModelConfig
 
-    def setup(self) -> None:
-        cfg = self.cfg
-        self.grid_conv = ConvBlocks(
-            cfg.num_conv_blocks, cfg.num_conv_filters, cfg.conv_kernel_size,
-            cfg.activation, cfg.max_pool, cfg.max_pool_kernel_size,
-            use_batch_norm=cfg.use_batch_norm, name="grid_conv")
+    # -- public entry points -------------------------------------------------
 
-        t = cfg.model_type
-        if t in ("rectangle", "rectangle_factorized"):
-            self.flat_feature_dense = nn.Dense(
-                cfg.component_feature_encoding_dimension,
-                name="flat_feature_dense")
-            self.flat_feature_norm = nn.BatchNorm(
-                momentum=0.99, epsilon=1e-3, name="flat_feature_norm")
+    def init(self, key, obs) -> dict:
+        """Create every variable of the preset from a sample batch,
+        including the factorized heads, which only the action distribution
+        calls otherwise."""
+        s = Scope.initializing(key)
+        out = self._forward(s, obs)
+        if self.cfg.is_factorized:
+            enc = out["encoding"]
+            b = enc.shape[0]
+            oh = jnp.zeros((b, self.cfg.num_orientations), enc.dtype)
+            xn = jnp.zeros((b,), enc.dtype)
+            self._o_logits(s, enc, xn, xn)
+            self._x_logits(s, enc, oh)
+            self._y_logits(s, enc, oh, xn)
+        return s.variables
 
-        if t.startswith("rectangle_pin") or t == "rectangle_factorized_pin":
-            self.component_dense = nn.Dense(
-                cfg.component_feature_encoding_dimension,
-                name="component_dense")
-            self.pin_dense = nn.Dense(cfg.pin_feature_encoding_dimension,
-                                      name="pin_dense")
-            if t in ("rectangle_pin_attn_all",
-                     "rectangle_pin_attn_all_no_grid",
-                     "rectangle_pin_all_attn_factorized"):
-                self.pin_q = nn.Dense(cfg.attn_hidden_size_pin, name="pin_q")
-                self.pin_k = nn.Dense(cfg.attn_hidden_size_pin, name="pin_k")
-                self.pin_v = nn.Dense(cfg.attn_hidden_size_pin, name="pin_v")
-            if t in ("rectangle_pin_attn_component", "rectangle_pin_attn_all",
-                     "rectangle_pin_attn_all_no_grid",
-                     "rectangle_pin_all_attn_factorized"):
-                self.comp_attn = SelfAttention(cfg.attn_hidden_size,
-                                               name="comp_attn")
+    def apply(self, variables, obs, train: bool = False) -> tuple:
+        """-> (outputs, updates). In train mode batch norm uses the batch's
+        statistics and ``updates`` holds the new ``batch_stats``; otherwise
+        ``updates`` is empty."""
+        s = Scope.bound(variables, train=train)
+        return self._forward(s, obs), s.updates
 
-        if t == "rectangle_spatial_pin":
-            self.pin_grid_conv = ConvBlocks(
-                cfg.num_conv_blocks, cfg.num_conv_filters,
-                cfg.conv_kernel_size, cfg.activation, cfg.max_pool,
-                cfg.max_pool_kernel_size, use_batch_norm=cfg.use_batch_norm,
-                name="pin_grid_conv")
-            self.component_grid_conv = ConvBlocks(
-                cfg.num_conv_blocks_component_grid,
-                cfg.num_conv_filters_component_grid,
-                cfg.conv_kernel_size_component_grid,
-                cfg.activation_component_grid,
-                cfg.max_pool_component_grid,
-                cfg.max_pool_kernel_size_component_grid,
-                padding=cfg.conv_padding_component_grid.upper(),
-                use_batch_norm=cfg.use_batch_norm,
-                name="component_grid_conv")
-            self.spatial_comp_attn = SelfAttention(
-                cfg.component_attn_hidden_size, name="spatial_comp_attn")
+    # factorized heads (rectangle_model_factorized.py:133-311)
+    def o_logits(self, variables, enc, x_norm=None, y_norm=None
+                 ) -> jnp.ndarray:
+        return self._o_logits(Scope.bound(variables), enc, x_norm, y_norm)
 
-        if cfg.is_factorized:
-            self.orientation_head = nn.Dense(cfg.num_orientations,
-                                             name="orientation_head")
-            self.x_head = nn.Dense(cfg.height, name="x_head")
-            self.y_head = nn.Dense(cfg.width, name="y_head")
-        else:
-            self.logits_head = nn.Dense(cfg.num_actions, name="logits_head")
-        self.value_head = nn.Dense(1, name="value_head")
+    def x_logits(self, variables, enc, onehot_o=None) -> jnp.ndarray:
+        return self._x_logits(Scope.bound(variables), enc, onehot_o)
+
+    def y_logits(self, variables, enc, onehot_o=None, x_norm=None
+                 ) -> jnp.ndarray:
+        return self._y_logits(Scope.bound(variables), enc, onehot_o, x_norm)
 
     # -- encoders ----------------------------------------------------------
 
-    def _encode_grid(self, grid, train):
-        x = self.grid_conv(grid, train=train)
+    def _conv_blocks(self, s, x):
+        """The grid conv stack (``grid_conv`` and ``pin_grid_conv``)."""
+        cfg = self.cfg
+        return conv_blocks(
+            s, x, cfg.num_conv_blocks, cfg.num_conv_filters,
+            cfg.conv_kernel_size, cfg.activation,
+            cfg.max_pool_kernel_size if cfg.max_pool else 0,
+            use_batch_norm=cfg.use_batch_norm)
+
+    def _encode_grid(self, s, grid):
+        x = self._conv_blocks(s.child("grid_conv"), grid)
         return x.reshape(x.shape[0], -1)
 
-    def _encode_rect_features(self, obs, train):
+    def _encode_rect_features(self, s, obs):
         """RectangleModel.preprocess + encode_flattened_component_feature
         (rectangle_model.py:104-163): zero placed components, flatten,
         Dense+BN+relu."""
@@ -162,8 +159,9 @@ class PlacementModel(nn.Module):
         keep = (obs["placement_mask"] == 0).astype(feat.dtype)
         masked = feat * keep[..., None]
         x = masked.reshape(masked.shape[0], -1)
-        x = self.flat_feature_dense(x)
-        x = self.flat_feature_norm(x, use_running_average=not train)
+        x = dense(s.child("flat_feature_dense"), x,
+                  self.cfg.component_feature_encoding_dimension)
+        x = batch_norm(s.child("flat_feature_norm"), x)
         return jax.nn.relu(x)
 
     def _pin_tokens(self, obs):
@@ -175,25 +173,22 @@ class PlacementModel(nn.Module):
                                 dtype=num.dtype)
         return jnp.concatenate([num, onehot], axis=-1)
 
-    def _encode_pin_components(self, obs, train):
+    def _encode_pin_components(self, s, obs):
         """RectanglePinModel encoding stack -> [B, C, D] token matrix
         (rectangle_pin_model.py:132-232)."""
         cfg = self.cfg
-        comp_enc = self.component_dense(obs["all_components_feature"])
+        comp_enc = dense(s.child("component_dense"),
+                         obs["all_components_feature"],
+                         cfg.component_feature_encoding_dimension)
         pins = self._pin_tokens(obs)                       # [B, C, ppc, F]
-        pin_enc = self.pin_dense(pins)                     # [B, C, ppc, E]
-        if cfg.model_type in ("rectangle_pin_attn_all",
-                              "rectangle_pin_attn_all_no_grid",
-                              "rectangle_pin_all_attn_factorized"):
+        pin_enc = dense(s.child("pin_dense"), pins,
+                        cfg.pin_feature_encoding_dimension)  # [B, C, ppc, E]
+        if cfg.model_type in _ATTN_PIN_TYPES:
             # per-component pin self-attention, flattened
             # (rectangle_pin_attn_component_pin_model.py:120-171)
-            q, k, v = self.pin_q(pin_enc), self.pin_k(pin_enc), self.pin_v(pin_enc)
-            w = jax.nn.softmax(jnp.einsum(
-                "bcqd,bckd->bcqk", q, k,
-                preferred_element_type=jnp.float32), axis=-1)
-            att = jax.nn.relu(jnp.einsum(
-                "bcqk,bckd->bcqd", w, v,
-                preferred_element_type=jnp.float32))
+            q, k, v = (dense(s.child(name), pin_enc, cfg.attn_hidden_size_pin)
+                       for name in ("pin_q", "pin_k", "pin_v"))
+            att = attention(q, k, v)
             pin_pooled = att.reshape(att.shape[0], att.shape[1], -1)
         else:
             # shared dense then sum-pool over pins (:186-217)
@@ -201,95 +196,91 @@ class PlacementModel(nn.Module):
         mask_onehot = jax.nn.one_hot(
             obs["placement_mask"].astype(jnp.int32), 4, dtype=comp_enc.dtype)
         tokens = jnp.concatenate([comp_enc, pin_pooled, mask_onehot], axis=-1)
-        if cfg.model_type in ("rectangle_pin_attn_component",
-                              "rectangle_pin_attn_all",
-                              "rectangle_pin_attn_all_no_grid",
-                              "rectangle_pin_all_attn_factorized"):
-            tokens = self.comp_attn(tokens)
+        if cfg.model_type in _ATTN_COMP_TYPES:
+            tokens = self_attention(s.child("comp_attn"), tokens,
+                                    cfg.attn_hidden_size)
         return tokens
 
-    def _encode_spatial(self, obs, train):
+    def _encode_spatial(self, s, obs):
         """RectanglePinSpatialModel encodings
         (rectangle_pin_spatial_model.py:95-230)."""
         b = obs["grid"].shape[0]
-        ge = self._encode_grid(obs["grid"], train)
-        pe = self.pin_grid_conv(obs["pin_grid"], train=train)
+        ge = self._encode_grid(s, obs["grid"])
+        pe = self._conv_blocks(s.child("pin_grid_conv"), obs["pin_grid"])
         pe = pe.reshape(b, -1)
         cgrid = obs["component_grid"]                      # [B, C, h, w, ch]
         bc = cgrid.reshape((-1,) + cgrid.shape[2:])
-        ce = self.component_grid_conv(bc, train=train)
+        cfg = self.cfg
+        ce = conv_blocks(
+            s.child("component_grid_conv"), bc,
+            cfg.num_conv_blocks_component_grid,
+            cfg.num_conv_filters_component_grid,
+            cfg.conv_kernel_size_component_grid,
+            cfg.activation_component_grid,
+            (cfg.max_pool_kernel_size_component_grid
+             if cfg.max_pool_component_grid else 0),
+            padding=cfg.conv_padding_component_grid.upper(),
+            use_batch_norm=cfg.use_batch_norm)
         ce = ce.reshape(b, cgrid.shape[1], -1)
         mask_onehot = jax.nn.one_hot(
             obs["placement_mask"].astype(jnp.int32), 4, dtype=ce.dtype)
         tokens = jnp.concatenate([ce, mask_onehot], axis=-1)
-        tokens = self.spatial_comp_attn(tokens)
+        tokens = self_attention(s.child("spatial_comp_attn"), tokens,
+                                cfg.component_attn_hidden_size)
         return jnp.concatenate([ge, pe, tokens.reshape(b, -1)], axis=-1)
 
-    def encode(self, obs, train: bool = False) -> jnp.ndarray:
+    def _encode(self, s, obs) -> jnp.ndarray:
         """Full encoding vector for the configured preset."""
-        cfg = self.cfg
-        t = cfg.model_type
+        t = self.cfg.model_type
         if t == "square":
-            return self._encode_grid(obs["grid"], train)
+            return self._encode_grid(s, obs["grid"])
         if t in ("rectangle", "rectangle_factorized"):
-            ge = self._encode_grid(obs["grid"], train)
-            fe = self._encode_rect_features(obs, train)
+            ge = self._encode_grid(s, obs["grid"])
+            fe = self._encode_rect_features(s, obs)
             return jnp.concatenate([ge, fe], axis=-1)
         if t == "rectangle_spatial_pin":
-            return self._encode_spatial(obs, train)
-        tokens = self._encode_pin_components(obs, train)
+            return self._encode_spatial(s, obs)
+        tokens = self._encode_pin_components(s, obs)
         flat = tokens.reshape(tokens.shape[0], -1)
         if t == "rectangle_pin_attn_all_no_grid":
             # drops the grid encoding (rectangle_pin_attn_all_model_no_grid.py:63-64)
             return flat
-        ge = self._encode_grid(obs["grid"], train)
+        ge = self._encode_grid(s, obs["grid"])
         return jnp.concatenate([ge, flat], axis=-1)
 
     # -- heads -------------------------------------------------------------
 
-    def __call__(self, obs, train: bool = False):
-        enc = self.encode(obs, train)
-        value = self.value_head(enc)[..., 0]
+    def _forward(self, s, obs):
+        enc = self._encode(s, obs)
+        value = dense(s.child("value_head"), enc, 1)[..., 0]
         if self.cfg.is_factorized:
             return {"encoding": enc, "value": value}
-        logits = self.logits_head(enc)
+        logits = dense(s.child("logits_head"), enc, self.cfg.num_actions)
         flat_mask = obs["action_mask"].reshape(logits.shape[0], -1)
         return {"logits": mask_logits(logits, flat_mask), "value": value}
 
-    def init_all(self, obs, train: bool = False) -> jnp.ndarray:
-        """__call__ plus a dummy pass through the factorized heads so that
-        ``init`` creates every parameter (heads are only exercised lazily by
-        the action distribution otherwise)."""
-        out = self(obs, train=train)
-        if self.cfg.is_factorized:
-            enc = out["encoding"]
-            b = enc.shape[0]
-            oh = jnp.zeros((b, self.cfg.num_orientations), enc.dtype)
-            xn = jnp.zeros((b,), enc.dtype)
-            yn = jnp.zeros((b,), enc.dtype)
-            _ = self.o_logits(enc, xn, yn)
-            _ = self.x_logits(enc, oh)
-            _ = self.y_logits(enc, oh, xn)
-        return out
-
-    # factorized heads (rectangle_model_factorized.py:133-311); called via
-    # module.apply(vars, ..., method="o_logits") etc.
-    def o_logits(self, enc, x_norm=None, y_norm=None) -> jnp.ndarray:
+    def _o_logits(self, s, enc, x_norm, y_norm):
+        head = s.child("orientation_head")
+        n = self.cfg.num_orientations
         if self.cfg.factorization == "orientation":
-            return self.orientation_head(enc)
-        return self.orientation_head(
-            jnp.concatenate([enc, x_norm[..., None], y_norm[..., None]], -1))
+            return dense(head, enc, n)
+        return dense(head, jnp.concatenate(
+            [enc, x_norm[..., None], y_norm[..., None]], -1), n)
 
-    def x_logits(self, enc, onehot_o=None) -> jnp.ndarray:
+    def _x_logits(self, s, enc, onehot_o):
+        head = s.child("x_head")
         if self.cfg.factorization == "orientation":
-            return self.x_head(jnp.concatenate([enc, onehot_o], -1))
-        return self.x_head(enc)
+            return dense(head, jnp.concatenate([enc, onehot_o], -1),
+                         self.cfg.height)
+        return dense(head, enc, self.cfg.height)
 
-    def y_logits(self, enc, onehot_o=None, x_norm=None) -> jnp.ndarray:
+    def _y_logits(self, s, enc, onehot_o, x_norm):
+        head = s.child("y_head")
         if self.cfg.factorization == "orientation":
-            return self.y_head(jnp.concatenate(
-                [enc, onehot_o, x_norm[..., None]], -1))
-        return self.y_head(jnp.concatenate([enc, x_norm[..., None]], -1))
+            return dense(head, jnp.concatenate(
+                [enc, onehot_o, x_norm[..., None]], -1), self.cfg.width)
+        return dense(head, jnp.concatenate([enc, x_norm[..., None]], -1),
+                     self.cfg.width)
 
 
 MODEL_REGISTRY = (

@@ -1,4 +1,4 @@
-"""Hot array ops for the placement engine (XLA baselines + Pallas kernels)."""
+"""Hot array ops for the placement engine."""
 
 from placement_tpu.ops.sat import (  # noqa: F401
     free_placement_mask,

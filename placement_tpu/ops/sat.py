@@ -6,10 +6,10 @@ ones(ph, pw), "valid") == 0`` per orientation
 kernel size varies per board, which would force recompilation (or a gather
 over kernels) if translated directly.
 
-TPU-native design: build a 2-D prefix sum (summed-area table) of the
-occupancy grid once per step; the occupied-cell count of ANY ``ph x pw``
-rectangle is then four gathers, so per-board dynamic component sizes are just
-integer offsets — no data-dependent shapes, fully ``vmap``/MXU friendly.
+Here: build a 2-D prefix sum (summed-area table) of the occupancy grid once
+per step; the occupied-cell count of ANY ``ph x pw`` rectangle is then four
+gathers, so per-board dynamic component sizes are just integer offsets — no
+data-dependent shapes, fully ``vmap`` friendly.
 """
 
 from __future__ import annotations

@@ -2,14 +2,14 @@
 
 The reference's only concurrency layer is Ray RLlib actors pinned to
 ``local_mode=True`` (experiments/PPO/PPO.py:38) — i.e. no real parallelism.
-The TPU-native replacement (SURVEY §2.4): the env batch is the scaling axis.
-Boards shard over a 1-D ``dp`` mesh spanning all chips of a pod slice
-(multi-host via ``jax.distributed``); model parameters are replicated (the
-policy nets are KB-scale, so TP/PP would only add latency); the PPO loss
-reduces across the sharded batch, and GSPMD lowers those reductions to
-``psum`` collectives over ICI. One ``jit`` of the learner's train step with
-these shardings is the whole distribution story — no parameter server, no
-object store.
+Here the env batch is the scaling axis (SURVEY §2.4): boards shard over a
+1-D ``dp`` mesh spanning the devices (several hosts via
+``jax.distributed``); model parameters are replicated (the policy nets are
+KB-scale, so tensor or pipeline parallelism would only add latency); the
+PPO loss reduces across the sharded batch, and GSPMD lowers those
+reductions to ``psum`` collectives. One ``jit`` of the learner's train step
+with these shardings is the whole distribution story — no parameter
+server, no object store.
 """
 
 from __future__ import annotations
@@ -99,47 +99,3 @@ def shard_env_batch(mesh: Mesh, states) -> "jax.Array":
     data = batch_sharding(mesh)
     return jax.tree_util.tree_map(lambda x: jax.device_put(x, data), states)
 
-
-def shard_fused_rollout(params, mesh: Mesh, batch: int, num_steps: int,
-                        block: int = 128,
-                        interpret: bool = False) -> tuple:
-    """The fused Pallas rollout kernel over a data-parallel mesh.
-
-    ``bench.py`` proves the kernel's per-chip number on one chip; this
-    wrapper is the multi-chip composition: each device runs the SAME
-    kernel on its ``batch / n_devices`` board shard under
-    ``jax.shard_map`` (boards on ``dp``), with a per-device seed offset
-    (``seed + axis_index``) so shards draw independent action/instance
-    streams, and the chunk's reward/episode totals ``psum``-reduced
-    across the mesh. Leaves stay dp-sharded across calls, so chained
-    chunks never gather. Throughput scales with devices because there is
-    no cross-device traffic except the two scalar reductions.
-
-    Returns ``(fn, spec)``: ``fn(leaves, seed) -> (leaves', reward_sum,
-    done_count)`` operating on globally-sharded leaf arrays, and ``spec``
-    the ``PartitionSpec`` dict to ``jax.device_put`` leaves with.
-    ``interpret=True`` runs the TPU interpreter per device (how the
-    8-device CPU-mesh CI exercises it, tests/parallel/test_mesh.py).
-    """
-    from placement_tpu.ops import fused_rollout
-
-    n = mesh.devices.size
-    if batch % n:
-        raise ValueError(f"batch {batch} not divisible by {n} devices")
-    local = fused_rollout.make_fused_rollout(
-        params, batch // n, num_steps, block=min(block, batch // n),
-        interpret=interpret)
-
-    def local_fn(leaves, seed):
-        out, rsum, dcnt = local(leaves,
-                                seed + jax.lax.axis_index(DATA_AXIS))
-        return (out, jax.lax.psum(rsum, DATA_AXIS),
-                jax.lax.psum(dcnt, DATA_AXIS))
-
-    spec = {k: P(DATA_AXIS) for k in fused_rollout._LEAVES}
-    fn = jax.jit(jax.shard_map(
-        local_fn, mesh=mesh,
-        in_specs=(spec, P()), out_specs=(spec, P(), P()),
-        # pallas_call outputs carry no vma annotations
-        check_vma=False))
-    return fn, spec

@@ -1,48 +1,36 @@
 """Profiling harness (SURVEY §5.1).
 
 The reference has no custom tracing — observability is RLlib's TensorBoard
-output. The TPU-native equivalent is ``jax.profiler``: traces capture XLA
-ops, fusion boundaries, and device occupancy, viewable in TensorBoard's
-profile plugin or Perfetto. Two entry points:
+output. Here it is ``jax.profiler``: traces capture XLA ops, fusion
+boundaries, and device occupancy, viewable in TensorBoard's profile plugin
+or Perfetto. Two entry points:
 
   * ``trace(logdir)`` — context manager; traces everything inside.
   * ``trace_iterations(logdir, first, last)`` — a window predicate used by
     the trainer to trace a few steady-state iterations (skip iteration 1,
     which is compile).
 
-Both are no-throw: profiling failures degrade to a warning so a broken
-profiler plugin can never kill a training run.
+A trace that was asked for and cannot start or stop raises: a run that
+silently lacks the profile it was launched to record is a failed run.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
 
 import jax
-
-log = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
 def trace(logdir: str):  # noqa: annotation (contextmanager generator)
     """``with trace(dir):`` — capture a jax.profiler trace into ``dir``."""
     os.makedirs(logdir, exist_ok=True)
-    started = False
-    try:
-        jax.profiler.start_trace(logdir)
-        started = True
-    except Exception as e:  # pragma: no cover - platform-dependent
-        log.warning("profiler trace failed to start: %s", e)
+    jax.profiler.start_trace(logdir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception as e:  # pragma: no cover
-                log.warning("profiler trace failed to stop: %s", e)
+        jax.profiler.stop_trace()
 
 
 class trace_iterations:
@@ -61,19 +49,13 @@ class trace_iterations:
     def maybe_start(self, iteration: int) -> None:
         if iteration == self.first and not self._active:
             os.makedirs(self.logdir, exist_ok=True)
-            try:
-                jax.profiler.start_trace(self.logdir)
-                self._active = True
-            except Exception as e:  # pragma: no cover
-                log.warning("profiler trace failed to start: %s", e)
+            jax.profiler.start_trace(self.logdir)
+            self._active = True
 
     def maybe_stop(self, iteration: int) -> None:
         if iteration >= self.last and self._active:
-            try:
-                jax.profiler.stop_trace()
-            except Exception as e:  # pragma: no cover
-                log.warning("profiler trace failed to stop: %s", e)
             self._active = False
+            jax.profiler.stop_trace()
 
     def close(self) -> None:
         self.maybe_stop(self.last)

@@ -218,7 +218,7 @@ def test_comparison_artifacts_committed_and_consistent():
 
 # ---------------------------------------------------------------------------
 # Throughput PPO preset (VERDICT r3 item 3 option b): num_sgd_iter=10 is
-# ~2x faster per iteration (train_step_profile.json) and must keep the
+# ~2x faster per iteration (tools/train_profile.py) and must keep the
 # flagship learning outcome inside the 30-epoch seed band.
 # ---------------------------------------------------------------------------
 

@@ -15,7 +15,7 @@ both processes exit 0 and report identical metrics (they execute the same
 global program, so any divergence means the collective layer is broken).
 
 This replaces the reference's Ray actor layer (experiments/PPO/PPO.py:38)
-with the TPU-native equivalent: ``jax.distributed`` + GSPMD collectives.
+with ``jax.distributed`` + GSPMD collectives.
 """
 
 import json

@@ -223,46 +223,3 @@ def test_strong_scaling_rollout_not_replicated():
     shard_shapes = {sh.data.shape for sh in grid.addressable_shards}
     assert shard_shapes == {(grid.shape[0], total // 8) + grid.shape[2:]}, (
         f"trajectory not sharded over boards: shards {shard_shapes}")
-
-
-@pytest.mark.slow
-def test_fused_rollout_shards_over_the_mesh():
-    """The fused Pallas kernel composes across the dp mesh
-    (parallel.shard_fused_rollout): each of the 8 devices steps its board
-    shard with an independent per-device seed, reward/episode totals
-    psum-reduce, and leaves stay dp-sharded across chained calls — the
-    multi-chip version of bench.py's per-chip number, exercised here under
-    the TPU interpreter."""
-    import jax.numpy as jnp
-
-    from placement_tpu.ops import fused_rollout
-    from placement_tpu.utils.config import load_experiment
-
-    params, _, _ = load_experiment("rectangle_pin")
-    batch, steps = 64, 10
-    mesh = pmesh.make_mesh(8)
-    fn, spec = pmesh.shard_fused_rollout(params, mesh, batch, steps,
-                                         interpret=True)
-    leaves = fused_rollout.init_leaves(params, jax.random.PRNGKey(3), batch)
-    leaves = {k: jax.device_put(v, NamedSharding(mesh, spec[k]))
-              for k, v in leaves.items()}
-
-    l1, rsum1, dcnt1 = fn(leaves, jnp.asarray(42, jnp.int32))
-    # flagship episodes are exactly 5 placements -> deterministic count
-    assert int(dcnt1) == batch * (steps // 5)
-    assert np.isfinite(float(rsum1)) and float(rsum1) < 0.0
-    assert l1["grid"].sharding.is_equivalent_to(
-        NamedSharding(mesh, P(pmesh.DATA_AXIS)), l1["grid"].ndim)
-
-    # chained second chunk keeps working on the sharded leaves
-    l2, rsum2, dcnt2 = fn(l1, jnp.asarray(43, jnp.int32))
-    assert int(dcnt2) == batch * (steps // 5)
-
-    # per-device seams: shards drew DIFFERENT instance streams (a
-    # same-seed bug would regenerate identical pin layouts on every
-    # shard; grids are empty here — 10 steps = exactly 2 full episodes —
-    # and the flagship's component sizes are fixed, so the randomly
-    # placed pin cells carry the stream evidence)
-    per_shard = [tuple(np.asarray(s.data).ravel())
-                 for s in l1["pin_rel_x"].addressable_shards]
-    assert len(set(per_shard)) > 1

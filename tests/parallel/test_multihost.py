@@ -39,7 +39,7 @@ def test_import_does_not_initialize_backend():
     code = (
         "import jax\n"
         "import placement_tpu.agent.trainer, placement_tpu.parallel.mesh\n"
-        "import placement_tpu.ops.fused_rollout, placement_tpu.viz.rollout\n"
+        "import placement_tpu.viz.rollout\n"
         # private JAX internals can move across upgrades — fall back to a
         # no-op check rather than failing on an attribute rename
         "try:\n"
@@ -92,8 +92,8 @@ def test_two_process_distributed_train_step():
 def test_two_process_training_cli(tmp_path):
     """The SHIPPED multi-host entry point end-to-end: two processes run
     ``experiments/ppo.py --coordinator ... --data-parallel`` against one
-    shared run directory. Process 0 writes progress.csv/params.json; the
-    Orbax checkpoint save is collective across both processes."""
+    shared run directory. Process 0 writes progress.csv/params.json and the
+    checkpoint, after both processes gather the sharded env batch."""
     coordinator = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env.update(JAX_PLATFORMS="cpu", PYTHONPATH=REPO, XLA_FLAGS="")

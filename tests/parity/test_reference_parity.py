@@ -293,8 +293,7 @@ def test_production_f32_terminal_reward_deviation(fixtures, name):
     one states the bound users actually run under). Centroid routing is
     rounding-tight; beam/'both' may flip near-tie routes on isolated seeds
     (heapq order on f64-equal costs is not defined by f32 arithmetic),
-    bounded below. The fused Pallas kernel has its own hardware-anchored
-    version of this bound (tests/tooling/test_fused_rollout.py goldens)."""
+    bounded below."""
     data = fixtures[name]
     params = PARAMS[name]
     assert not jax.config.jax_enable_x64

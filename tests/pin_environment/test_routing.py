@@ -164,7 +164,9 @@ def beam_path(points, bw, start_idx=0):
     m = len(points)
     pos = jnp.asarray(np.array(points, np.float32))
     mask = jnp.ones((m,), bool)
-    fn = jax.jit(lambda p, ms: routing.beam_search_net(p, ms, bw, start_idx))
+    table = routing.sqrt_table(2 * 10 ** 2, jnp.float32)
+    fn = jax.jit(lambda p, ms: routing.beam_search_net(p, ms, bw, start_idx,
+                                                       table))
     path = np.asarray(fn(pos, mask))
     return [tuple(points[i]) for i in path if i >= 0]
 

@@ -22,7 +22,7 @@ CLIS = [
     "experiments/random_policy/run_policy_rectangular.py",
     "experiments/random_policy/run_policy_rectangular_pin.py",
     "tools/train_throughput.py",
-    "tools/bench_block_sweep.py",
+    "chip_smoke.py",
 ]
 
 

@@ -1,7 +1,7 @@
 """Pooled auto-reset parity: step_autoreset_pooled must match the semantics
 of core.step_autoreset — identical transition for live boards, a fresh
 independently-keyed instance for done boards — with the generator amortized
-into one pool call per chunk (PERF_NOTES.md lever #2)."""
+into one pool call per chunk."""
 
 import jax
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Trainer / checkpoint / metrics / rollout-export tests.
 
-The reference has no tests for this layer; these cover the TPU build's
+The reference has no tests for this layer; these cover this package's
 replacements for Ray Tune checkpointing (experiments/PPO/PPO.py:39-47),
 progress.csv + TensorBoard logging, and the rollout exporter
 (utils/agent/utils.py:154-259).

@@ -120,7 +120,7 @@ def run(paths):
 def main():
     paths = sys.argv[1:] or [REPO / "placement_tpu", REPO / "tools",
                              REPO / "experiments", REPO / "bench.py",
-                             REPO / "__graft_entry__.py"]
+                             REPO / "__graft_entry__.py", REPO / "chip_smoke.py"]
     errors = run(paths)
     for e in errors:
         print(e)

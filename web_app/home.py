@@ -17,13 +17,13 @@ except ImportError as e:  # pragma: no cover - optional dependency
         "The web app needs streamlit (pip install streamlit); the core "
         "framework does not depend on it.") from e
 
-st.set_page_config(page_title="TPU Component Placement", page_icon="🔲",
+st.set_page_config(page_title="RL Component Placement", page_icon="🔲",
                    layout="wide")
 
-st.title("RL Component Placement — TPU edition")
+st.title("RL Component Placement")
 st.markdown(
     """
-A TPU-native reinforcement-learning framework for PCB component placement.
+A JAX reinforcement-learning framework for PCB component placement.
 
 Use the pages in the sidebar:
 
